@@ -14,7 +14,7 @@ stresses multi-hit and fallback behavior the i.i.d. model cannot.
 import os
 
 import numpy as np
-from common import cached_index, report, setup_jax
+from common import CACHE, cached_index, report, setup_jax
 
 N = int(os.environ.get("HSA_BENCH_ACC_BP", "16000000"))
 B = int(os.environ.get("HSA_BENCH_ACC_READS", "2000"))
@@ -31,7 +31,7 @@ def main():
     di, text = cached_index(f"acc_{N // 1_000_000}M", N, model=MODEL)
     text = np.asarray(text, np.int8)
     opt = AlnOpt(max_diff=2)
-    kdir = os.path.join(os.path.expanduser("~/.cache/hsa_tpu_bench"),
+    kdir = os.path.join(CACHE,
                         f"idxdir_acc_{N // 1_000_000}M_{MODEL}")
     os.makedirs(kdir, exist_ok=True)
     al = Aligner.from_arrays(di, text, opt=opt, ladder=[8, 64, 512],

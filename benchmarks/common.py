@@ -1,9 +1,9 @@
-"""Shared helpers for the five BASELINE benchmark configs.
+"""Shared helpers for the five benchmark configs.
 
 Each config script prints one JSON line (same shape as bench.py).  Genomes
-are synthetic (no network in this environment — see BASELINE.md); sizes
-default to the BASELINE scales where feasible and are overridable via
-HSA_BENCH_* env vars.  Indexes cache under ~/.cache/hsa_tpu_bench.
+are synthetic (made from a seed; nothing is downloaded); sizes are
+overridable via HSA_BENCH_* env vars.  Indexes cache under
+``.cache/bench`` in the checkout (``hsa_tpu.cache``).
 """
 
 from __future__ import annotations
@@ -15,27 +15,25 @@ import time
 
 import numpy as np
 
-CACHE = os.path.expanduser("~/.cache/hsa_tpu_bench")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from hsa_tpu.cache import ROOT, enable_compile_cache  # noqa: E402
+
+CACHE = os.path.join(ROOT, "bench")
 
 
 def setup_jax(platform=None):
     import jax
-    os.makedirs(os.path.join(CACHE, "xla"), exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", os.path.join(CACHE, "xla"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     if platform:
         jax.config.update("jax_platforms", platform)
-    from hsa_tpu.pipeline import force_sync_mode
-    force_sync_mode()  # MUST precede any dispatch (docs/TPU_NOTES.md)
+    enable_compile_cache()
     return jax
 
 
 def synth_genome(n: int, model: str = "iid", seed: int = 7) -> np.ndarray:
-    """Synthetic genome (no network — BASELINE.md).
+    """Synthetic genome made from ``seed``.
 
-    ``iid``: uniform random bases (round-1 stand-in: optimistic for beam
-    width, pessimistic for cache reuse).
+    ``iid``: uniform random bases (optimistic for beam width,
+    pessimistic for cache reuse).
     ``repeats``: stresses multi-hit/overflow paths like real genomes do —
     55% i.i.d. background, 30% dispersed repeat-family copies (Alu-like:
     300bp consensus sequences re-inserted with 2-8% divergence), 10%
@@ -123,27 +121,22 @@ def sample_reads(text, n_reads, read_len, n_mm=0, indel=False, seed=1):
 
 
 def timeit(fn, *args, iters=4):
-    """Honest timing: a readback after EVERY call (block_until_ready lies
-    on this backend — docs/TPU_NOTES.md v2)."""
+    """Mean seconds per call after one warm-up call; each call ends in
+    ``jax.block_until_ready``."""
     import jax
 
-    def rb(out):
-        np.asarray(jax.tree_util.tree_leaves(out)[0]).ravel()[:2]
-
-    out = fn(*args)
-    rb(out)
+    out = jax.block_until_ready(fn(*args))
     t0 = time.time()
     for _ in range(iters):
-        out = fn(*args)
-        rb(out)
+        out = jax.block_until_ready(fn(*args))
     return (time.time() - t0) / iters, out
 
 
 def stream_campaigns(al, reads, batch, iters=6, reps=3):
     """Median of ``reps`` align_stream campaign means, with ONE untimed
     settle campaign first so steady-state shape classes (upshifted
-    profile, retry/beam pads) compile outside the timed loop — the
-    TPU_NOTES v4/v5 discipline the headline bench uses."""
+    profile, retry/beam pads) compile outside the timed loop, as in the
+    headline bench."""
     def batches():
         for it in range(iters):
             yield it * batch, None, reads, None

@@ -1,7 +1,7 @@
-"""BASELINE config 1: exact-match search, 100bp reads vs E. coli K-12
-scale (4.6 Mbp), replicated FM-index, single chip.
+"""Config 1: exact-match search, 100bp reads vs E. coli K-12
+scale (4.6 Mbp), replicated FM-index, one device.
 
-Round 2: the workload routes through the pigeon engine with a single
+The workload routes through the pigeon engine with a single
 segment and budget 0 — one K-mer-seeded anchor, direct-SA locate, and a
 packed window verify (nmm must be 0) — the exact-match special case of
 the production path.  Set HSA_BENCH_C1_ENGINE=scan for the classic

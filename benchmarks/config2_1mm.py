@@ -1,9 +1,9 @@
-"""BASELINE config 2: 1-mismatch inexact search, 100bp reads vs phiX +
+"""Config 2: 1-mismatch inexact search, 100bp reads vs phiX +
 E. coli scale (5.4 Mbp).
 
-Round 2: routes through the pigeon engine (2 segments, budget 1) with
+Routes through the pigeon engine (2 segments, budget 1) with
 mapped/overflow parity semantics; HSA_BENCH_C2_ENGINE=beam runs the
-classic width-8 beam of the round-1 config.
+classic width-8 beam instead.
 """
 
 import os

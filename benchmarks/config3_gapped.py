@@ -1,21 +1,19 @@
-"""BASELINE config 3: full gapped inexact search (mismatch+indel budget) vs
+"""Config 3: full gapped inexact search (mismatch+indel budget) vs
 human chr21 scale (46 Mbp), 1 host.
 
-Round 3: runs the PRODUCTION path end-to-end — the pigeon engine with
-one-run gapped device verify (fnr budget 5 -> 6 segments, gap runs up to
-5) plus the beam ladder for structural fallbacks, through
-Aligner.align_stream (pipelined host/device overlap), records included.
-Round 2 ran the beam only at 7.8K reads/s; the gapped pigeon path is the
-round-3 headline fix for this config.
+Runs the PRODUCTION path end-to-end — the pigeon engine with one-run
+gapped device verify (fnr budget 5 -> 6 segments, gap runs up to 5) plus
+the beam ladder for structural fallbacks, through Aligner.align_stream
+(pipelined host/device overlap), records included.
 """
 
 import os
 import time
 import numpy as np
-from common import cached_index, report, sample_reads, setup_jax
+from common import CACHE, cached_index, report, sample_reads, setup_jax
 
 N = int(os.environ.get("HSA_BENCH_C3_BP", "46700000"))
-# 8K batches edge out 16K e2e (48.8K vs 45.7K reads/s, round-4 sweep)
+# batch size not yet tuned on the H100
 B = int(os.environ.get("HSA_BENCH_BATCH", "8192"))
 L = 100
 ITERS = int(os.environ.get("HSA_BENCH_ITERS", "4"))
@@ -29,7 +27,7 @@ def main():
     di, text = cached_index("chr21_46M", N)
     text = np.asarray(text, np.int8)
     opt = AlnOpt()  # fnr budgets, gaps enabled (defaults): md=5 at 100bp
-    kdir = os.path.join(os.path.expanduser("~/.cache/hsa_tpu_bench"),
+    kdir = os.path.join(CACHE,
                         "idxdir_chr21_46M")
     os.makedirs(kdir, exist_ok=True)
     al = Aligner.from_arrays(di, text, opt=opt, ladder=[8, 64],

@@ -1,29 +1,27 @@
-"""BASELINE config 4: paired-end 150bp reads vs whole-human-scale genome,
+"""Config 4: paired-end 150bp reads vs whole-human-scale genome,
 1 host.
 
 "Whole human" is approximated at HSA_BENCH_C4_MBP (default 250 Mbp — a
 chr1-scale synthetic genome; the 3.1 Gbp build is a one-time SA-IS run,
 enabled by env var when the round budget allows).
 
-Round 3: runs the PRODUCTION paired path end-to-end — both ends through
-the pigeon engine (150bp now inside the engine's 160bp window; one-run
-gapped verify on), pairing + insert-size inference + mate rescue +
-paired MAPQ, SAM records out.  Round 2 ran the beam search side only at
-385.9 pairs/s; 150bp reads could not enter the pigeon engine at all.
+Runs the PRODUCTION paired path end-to-end — both ends through the
+pigeon engine (150bp inside the engine's 160bp window; one-run gapped
+verify on), pairing + insert-size inference + mate rescue + paired MAPQ,
+SAM records out.
 """
 
 import os
 import time
 import numpy as np
-from common import cached_index, report, setup_jax
+from common import CACHE, cached_index, report, setup_jax
 
 N = int(os.environ.get("HSA_BENCH_C4_MBP", "250")) * 1_000_000
-# 4096-pair batches beat 8192/16384 e2e (13.1K vs 9.5K/8.6K pairs/s,
-# round-4 sweep): same pipeline-granularity effect as the SE headline
+# batch size not yet tuned on the H100
 B = int(os.environ.get("HSA_BENCH_PAIRS", "4096"))  # pairs
 L = 150
 # 6 iters/campaign: the depth-2 pipeline needs a few batches to amortize
-# its fill; 3 iters understated steady-state by ~35% (round-5 sweep)
+# its fill
 ITERS = int(os.environ.get("HSA_BENCH_ITERS", "6"))
 REPS = int(os.environ.get("HSA_BENCH_REPS", "3"))
 
@@ -38,7 +36,7 @@ def main():
         # whole-human scale: reuse bench.py's 3.1 Gbp sa_intv=8 cache
         # (same synth_genome seed) instead of a second 72-min build
         from hsa_tpu.index.layout import DeviceIndex
-        cache = os.path.expanduser("~/.cache/hsa_tpu_bench")
+        cache = CACHE
         di = DeviceIndex.load(os.path.join(
             cache, f"idx_{N // 1_000_000}M_v4b_s8.npz"))
         text = np.load(os.path.join(cache, f"txt_{N // 1_000_000}M.npy"),
@@ -47,7 +45,7 @@ def main():
         di, text = cached_index(f"human_{N // 1_000_000}M", N)
     text = np.asarray(text, np.int8)
     opt = AlnOpt(max_diff=2)
-    kdir = os.path.join(os.path.expanduser("~/.cache/hsa_tpu_bench"),
+    kdir = os.path.join(CACHE,
                         f"idxdir_human_{N // 1_000_000}M")
     os.makedirs(kdir, exist_ok=True)
     al = Aligner.from_arrays(di, text, opt=opt, ladder=[8, 64],
@@ -85,7 +83,7 @@ def main():
             sam = "\n".join(lines)
             assert sam
         rep_means.append((time.time() - t0) / ITERS)
-    dt = float(np.median(rep_means))   # median campaign (round-4 contract)
+    dt = float(np.median(rep_means))   # median campaign
     report("paired_pairs_per_s", B / dt, "pairs/s",
            genome_mbp=N // 1_000_000, pairs=B, read_len=L,
            engine="pigeon+gapped",

@@ -1,16 +1,14 @@
-"""BASELINE config 5: sharded-BWT paired search at scale with the
-all-gather/psum interval merge across N>=2 index shards.
+"""Config 5: sharded-BWT paired search at scale with the psum interval
+merge across N>=2 index shards.
 
-On real multi-host slices this runs unchanged after
-``hsa_tpu.dist.init_multihost``; in this single-chip environment it
-executes on a virtual 8-device CPU mesh (JAX_PLATFORMS=cpu +
+It executes on a virtual 8-device CPU mesh (JAX_PLATFORMS=cpu +
 xla_force_host_platform_device_count=8) to exercise the full sharded
-path.  CPU-mesh wall times are thread-barrier latency artifacts (round-2
-finding), so the primary metrics here are the COMMUNICATION VOLUMES of
-the sharded step — psum collective count and per-shard bytes merged per
-batch, counted exactly from the traced jaxpr — for both the beam and
-the flagship pigeon engines; these are the quantities that ride the ICI
-on a real slice.
+path.  CPU-mesh wall times are thread-barrier latency artifacts, so the
+primary metrics here are the COMMUNICATION VOLUMES of the sharded step —
+psum collective count and per-shard bytes merged per batch, counted
+exactly from the traced jaxpr — for both the beam and the flagship
+pigeon engines; these are the quantities that cross the interconnect
+between cards.
 """
 
 import os

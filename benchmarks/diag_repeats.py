@@ -11,7 +11,7 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(__file__))
-from common import cached_index, sample_reads, setup_jax  # noqa: E402
+from common import CACHE, setup_jax  # noqa: E402
 
 B = int(os.environ.get("HSA_BENCH_BATCH", "16384"))
 L = 100
@@ -24,7 +24,7 @@ def main():
     from hsa_tpu.search import pigeon as pg
 
     from hsa_tpu.index.layout import DeviceIndex
-    cache = os.path.expanduser("~/.cache/hsa_tpu_bench")
+    cache = CACHE
     di = DeviceIndex.load(os.path.join(cache, "idx_64M_repeats_v4b_s8.npz"))
     text = np.asarray(np.load(os.path.join(cache, "txt_64M_repeats.npy"),
                               mmap_mode="r"), np.int8)

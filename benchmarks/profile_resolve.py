@@ -1,5 +1,5 @@
-"""Host-resolve profiler for the gapped config (VERDICT r4: config3's
-e2e cost is resolve_ms=638 of batch_ms=902 — attribute it)."""
+"""Host-resolve profiler for the gapped config: attributes the host
+resolution time of one config-3 batch with cProfile."""
 import cProfile
 import os
 import pstats
@@ -9,7 +9,7 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(__file__))
-from common import cached_index, sample_reads, setup_jax  # noqa: E402
+from common import CACHE, cached_index, sample_reads, setup_jax  # noqa: E402
 
 N = int(os.environ.get("HSA_BENCH_C3_BP", "46700000"))
 B = int(os.environ.get("HSA_BENCH_BATCH", "16384"))
@@ -26,7 +26,7 @@ def main():
     di, text = cached_index("chr21_46M", N)
     text = np.asarray(text, np.int8)
     opt = AlnOpt()
-    kdir = os.path.join(os.path.expanduser("~/.cache/hsa_tpu_bench"),
+    kdir = os.path.join(CACHE,
                         "idxdir_chr21_46M")
     al = Aligner.from_arrays(di, text, opt=opt, ladder=[8, 64],
                              engine="auto", index_dir=kdir)

@@ -60,7 +60,7 @@ class AlnOpt:
     max_top2: int = 30          # -R (unused; see note above)
     max_entries: int = 2_000_000  # -m (unused; see note above)
     trim_qual: int = 0          # -q  quality trimming threshold
-    # --- engine knobs with no reference analog (TPU beam search) ---
+    # --- engine knobs with no reference analog (batched beam search) ---
     beam_width: int = 64        # frontier capacity per read; overflow is counted
     max_len: int = 160          # static read-length bound for device kernels
 

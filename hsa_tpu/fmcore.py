@@ -93,11 +93,15 @@ class FMIndex:
     sa: np.ndarray | None = None  # full SA (testing only)
 
     @classmethod
-    def build(cls, t: np.ndarray, sa_intv: int = 32, keep_sa: bool = True) -> "FMIndex":
+    def build(cls, t: np.ndarray, sa_intv: int = 32, keep_sa: bool = True,
+              sa: np.ndarray | None = None) -> "FMIndex":
+        """``sa``: the suffix array of ``t`` when already known (e.g. from
+        the native builder for large texts); computed here otherwise."""
         t = np.asarray(t, dtype=np.int8)
         if t.size and (t.min() < 0 or t.max() > 3):
             raise ValueError("text must be over codes 0..3 (substitute ambiguous first)")
-        sa = suffix_array(t)
+        if sa is None:
+            sa = suffix_array(t)
         bwt, primary = bwt_from_sa(t, sa)
         n = len(t)
         counts = np.bincount(t, minlength=4).astype(np.int64)

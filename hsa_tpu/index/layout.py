@@ -1,21 +1,10 @@
-"""Fused rank-indexed occ/mark row layout for TPU gathers (v4).
+"""Fused rank-indexed occ/mark row layout for device gathers (v4).
 
-This is the TPU-native replacement for the reference's interleaved
-occ-checkpoint BWT stream (lineage: ``bwt.c:bwt_bwtupdate_core``,
-``OCC_INTERVAL`` 0x80).  Honest round-2 measurements (tools/regime_probe,
-tools/gather_probe2, docs/TPU_NOTES.md) pinned the cost model:
-
-- ``jnp.take`` row gathers inside a ``lax.scan`` run at ~75 Mrows/s on the
-  target backend, roughly independent of row width (32B..64B) — the cost
-  is per ROW, not per byte;
-- every alternative mechanism (Pallas per-query DMA, in-kernel scalar row
-  loads, XLA one-hot, sort-based coalescing) measured 10-250x slower;
-- the occ *decode* arithmetic costs about as much as the gather itself at
-  the v3 64-symbol block size.
-
-Hence the v4 design rules: (1) make every FM primitive touch as FEW rows
-as possible, (2) keep rows 32B, (3) shrink decode.  The key structural
-move is **rank-indexed fused rows**: one row per 32 SA *ranks* carrying
+This replaces the reference's interleaved occ-checkpoint BWT stream
+(lineage: ``bwt.c:bwt_bwtupdate_core``, ``OCC_INTERVAL`` 0x80) with a
+layout built for batched random row gathers: every FM primitive touches as
+FEW rows as possible, rows are 32 bytes, and the decode is short.  The key
+structural move is **rank-indexed fused rows**: one row per 32 SA *ranks* carrying
 occ checkpoints, BWT symbols, locate mark bits and the mark-rank
 checkpoint together, so that an LF step — and therefore every locate-walk
 step — needs exactly ONE gather (v3 needed two: occ row + mark row).
@@ -36,10 +25,10 @@ Row b (uint32[8], 32 bytes) covers ranks [32b, 32b+32)::
 
 nb = (n+1)//32 + 1 so a prefix length of exactly n+1 is addressable (the
 final row may be a pure checkpoint).  1 byte/symbol total — human-genome
-(3.1 Gbp) forward+reverse tables fit HBM with room for samples.
+(3.1 Gbp) forward+reverse tables fit device memory with room for samples.
 
 All ranks/positions/counts are uint32: the genome length bound is 2^32-2
-(~4.3 Gbp), which covers the human genome; TPU int64 emulation is avoided.
+(~4.3 Gbp), which covers the human genome without 64-bit device integers.
 """
 
 from __future__ import annotations

@@ -1,6 +1,3 @@
-"""Pallas TPU kernels for the hot compute paths (+ jnp reference versions).
-
-Every kernel has a jnp twin with identical semantics: the jnp path is the
-correctness reference (and the CPU/interpret fallback), the Pallas path is
-the TPU fast path.  Tests compare them in interpret mode (SURVEY.md §4.4).
+"""Device building blocks written in plain jnp/lax: top-K selection for
+the beam engine (``select``) and the batched glocal DP screen (``sw``).
 """

@@ -12,12 +12,12 @@ exclusive prefix-min::
 (the ``-gape`` makes a length-g gap cost gapo + (g-1)*gape)
 
 so one row update is pure vector ops plus one cumulative min
-(``associative_scan`` in the jnp path, log-step roll-min in Pallas).
+(``associative_scan``).
 
 The screen returns only (cost, end_column): traceback for the few accepted
 rescues runs on the host over a tiny window slice
 (``hsa_tpu.resolve.sampe.fit_in_window``, which is the semantics oracle
-for this kernel — tested cost-equal).
+for this screen — tested cost-equal).
 
 Semantics: full read aligned, window start/end free, costs (s_mm per
 mismatch, s_gapo + (g-1)*s_gape per gap of length g), read code 4 (N)
@@ -27,9 +27,6 @@ are masked.
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
 from jax import lax
 
@@ -105,131 +102,3 @@ def glocal_screen(reads, lens, windows, wlens, s_mm: int, s_gapo: int,
     end = jnp.argmin(all_tot, axis=1).astype(I32)
     cost = jnp.take_along_axis(all_tot, end[:, None], axis=1)[:, 0]
     return cost, end
-
-
-# ---------------------------------------------------------------------------
-# Pallas fast path
-# ---------------------------------------------------------------------------
-
-def _glocal_kernel(lens_ref, wlens_ref, reads_ref, windows_ref,
-                   cost_ref, end_ref, *, L, G, s_mm, s_gapo, s_gape):
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    T = reads_ref.shape[0]
-    cidx = jax.lax.broadcasted_iota(I32, (T, G), 1)  # 0-based column index
-    cols = cidx + 1
-    col_ok = cols <= wlens_ref[:, 0][:, None]
-    gape_ramp = cols * s_gape
-    windows = windows_ref[:, :].astype(I32)
-
-    def shift1(x, fill):
-        # lane shift right by one: [a, b, c] -> [fill, a, b]
-        r = pltpu.roll(x, 1, 1)
-        return jnp.where(cidx == 0, fill, r)
-
-    def roll_min_scan(c):
-        # inclusive prefix-min along lanes via log-step roll+min
-        sh = 1
-        while sh < G:
-            r = pltpu.roll(c, sh, 1)
-            c = jnp.minimum(c, jnp.where(cidx < sh, BIG, r))
-            sh *= 2
-        return c
-
-    reads_all = reads_ref[:, :].astype(I32)
-    rcol_iota = jax.lax.broadcasted_iota(I32, (T, L), 1)
-
-    def body(i, carry):
-        m, ins, dele, m0, ins0 = carry
-        # dynamic lane-dim loads aren't lowerable: select column i by mask
-        rb = jnp.sum(jnp.where(rcol_iota == i, reads_all, 0), axis=1,
-                     keepdims=True)
-        sub = jnp.where((rb <= 3) & (rb == windows), 0, s_mm)
-        active1 = (i < lens_ref[:, 0])[:, None]
-        act = active1.astype(I32)  # 0/1, [T,1]
-        pm = shift1(m, m0)
-        pi = shift1(ins, ins0)
-        pd = shift1(dele, BIG)
-        best_prev = jnp.minimum(jnp.minimum(pm, pi), pd)
-        m_new = jnp.where(col_ok, best_prev + sub, BIG)
-        ins_new = jnp.minimum(m + s_gapo, ins + s_gape)
-        ins0_new = jnp.minimum(m0 + s_gapo, ins0 + s_gape)
-        c = m_new - gape_ramp + (s_gapo - s_gape)
-        cm_excl = shift1(roll_min_scan(c), BIG)
-        dele_new = jnp.where(col_ok, cm_excl + gape_ramp, BIG)
-        # arithmetic blend instead of select_n: Mosaic rejects the
-        # broadcast-predicate relayout a [T,1]->[T,G] select would need
-        m = m + (m_new - m) * act
-        ins = ins + (ins_new - ins) * act
-        dele = dele + (dele_new - dele) * act
-        m0 = m0 + (BIG - m0) * act
-        ins0 = ins0 + (ins0_new - ins0) * act
-        return m, ins, dele, m0, ins0
-
-    # initialize carries from memory-loaded zeros: constant (or foldable)
-    # inits get a lane-replicated layout that the loop body's computed
-    # values can't legally relayout to (Mosaic "Invalid relayout")
-    zero_tg = jnp.minimum(windows, 0)  # == 0 (codes 0..3) but not foldable
-    m = zero_tg
-    ins = zero_tg + BIG
-    dele = zero_tg + BIG
-    zero_t1 = jnp.min(zero_tg, axis=1, keepdims=True)
-    m0 = zero_t1
-    ins0 = zero_t1 + BIG
-    m, ins, dele, m0, ins0 = jax.lax.fori_loop(
-        0, L, body, (m, ins, dele, m0, ins0))
-
-    total = jnp.where(col_ok, jnp.minimum(jnp.minimum(m, ins), dele), BIG)
-    end0 = jnp.minimum(ins0, m0)[:, 0]
-    cost_in = jnp.min(total, axis=1)
-    cost = jnp.minimum(cost_in, end0)
-    # argmin by hand (Mosaic argmin supports only f32): first col at the
-    # min; column 0 (whole-read insertion) wins ties, matching jnp argmin
-    end_in = jnp.min(jnp.where(total == cost_in[:, None], cols, BIG), axis=1)
-    end = jnp.where(end0 <= cost_in, 0, end_in)
-    cost_ref[:, 0] = cost
-    end_ref[:, 0] = end
-
-
-def glocal_screen_pallas(reads, lens, windows, wlens, s_mm: int, s_gapo: int,
-                         s_gape: int, *, tile: int = 128, interpret: bool = False):
-    """Pallas TPU fast path; semantics identical to :func:`glocal_screen`."""
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    R, L = reads.shape
-    G = windows.shape[1]
-    pad = (-R) % tile
-    if pad:
-        reads = jnp.pad(reads, ((0, pad), (0, 0)))
-        windows = jnp.pad(windows, ((0, pad), (0, 0)))
-        lens = jnp.pad(lens, (0, pad))
-        wlens = jnp.pad(wlens, (0, pad))
-    Rp = R + pad
-
-    kern = functools.partial(_glocal_kernel, L=L, G=G, s_mm=s_mm,
-                             s_gapo=s_gapo, s_gape=s_gape)
-    grid = (Rp // tile,)
-    cost, end = pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tile, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, L), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, G), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((tile, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((Rp, 1), jnp.int32),
-            jax.ShapeDtypeStruct((Rp, 1), jnp.int32),
-        ],
-        interpret=interpret,
-    )(lens.astype(I32)[:, None], wlens.astype(I32)[:, None],
-      reads.astype(I32), windows.astype(I32))
-    return cost[:R, 0], end[:R, 0]

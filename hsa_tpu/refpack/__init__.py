@@ -1,40 +1,70 @@
-"""ctypes loader for the native refpack index-construction library.
+"""ctypes loader for the native refpack library.
 
-Builds ``librefpack.so`` on demand (g++ is in the base image; no network or
-pip is needed).  Falls back to the numpy implementation in
-:mod:`hsa_tpu.fmcore` when the toolchain is unavailable, so the pure-Python
-path always works — the native path is the production one for large genomes
-(linear-time SA-IS; the numpy prefix-doubling builder is O(n log^2 n)).
+The library is built from the sources beside this file (``make``; g++ is
+the only requirement) into ``.cache/build/`` on first use.  Its file name
+carries a hash of ``refpack.cpp``, ``sais.hpp`` and the ``Makefile`` plus
+the host name, so an edited source triggers a rebuild and a library built
+on another machine (the Makefile compiles with ``-march=native``) is
+never loaded.  Falls back to the numpy implementation in
+:mod:`hsa_tpu.fmcore` when the toolchain is unavailable, so the
+pure-Python path always works — the native path is the production one
+for large genomes (linear-time SA-IS; the numpy prefix-doubling builder is
+O(n log^2 n)).
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 
 import numpy as np
 
+from ..cache import ROOT
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SO = os.path.join(_DIR, "librefpack.so")
+_SOURCES = ("refpack.cpp", "sais.hpp", "Makefile")
+_SO = None          # set to load a specific library (sanitizer builds)
 _lib = None
 _build_failed = False
+
+
+def so_path(src_dir: str = _DIR, build_dir: str | None = None) -> str:
+    """Path of the library built from ``src_dir`` on this host."""
+    h = hashlib.sha256()
+    for name in _SOURCES:
+        with open(os.path.join(src_dir, name), "rb") as fh:
+            h.update(fh.read())
+    h.update(platform.node().encode())
+    return os.path.join(build_dir or os.path.join(ROOT, "build"),
+                        f"librefpack-{h.hexdigest()[:16]}.so")
+
+
+def build_library(src_dir: str = _DIR, build_dir: str | None = None) -> str:
+    """Build the library unless this exact one exists; returns its path.
+
+    Concurrent builders (test workers) each compile to a private file and
+    rename it into place, so no process loads a half-written library.
+    """
+    so = so_path(src_dir, build_dir)
+    if not os.path.exists(so):
+        os.makedirs(os.path.dirname(so), exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        subprocess.run(["make", "-C", src_dir, "-s", f"OUT={tmp}"],
+                       check=True, capture_output=True, timeout=600)
+        os.replace(tmp, so)
+    return so
 
 
 def _load():
     global _lib, _build_failed
     if _lib is not None or _build_failed:
         return _lib
-    if not os.path.exists(_SO):
-        try:
-            subprocess.run(["make", "-C", _DIR, "-s"], check=True,
-                           capture_output=True, timeout=300)
-        except Exception:
-            _build_failed = True
-            return None
     try:
-        lib = ctypes.CDLL(_SO)
-    except OSError:
+        lib = ctypes.CDLL(_SO or build_library())
+    except (OSError, subprocess.SubprocessError):
         _build_failed = True
         return None
     i64p = ctypes.POINTER(ctypes.c_int64)

@@ -804,8 +804,7 @@ def _rescue_batch(text, meta, jobs, rlim, opt: AlnOpt):
     from ..kernels.sw import glocal_screen
     # quantized shapes: the window span varies with the inferred insert
     # stats, so raw (R, Lmax, Gmax) would recompile the screen every
-    # batch (measured ~0.5 s/batch on repeat-dense PE); padded lanes
-    # are fully masked by lens/wlens
+    # batch; padded lanes are fully masked by lens/wlens
     def _q(x, step):
         return ((max(x, 1) + step - 1) // step) * step
     Lmax = _q(max(p[6] for p in prepped), 32)

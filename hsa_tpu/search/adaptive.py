@@ -17,12 +17,10 @@ full capacity, so ``esc_frac`` trades rung cost against the flagged-read
 fraction it can absorb (typical k=2 overflow is ~10%; the default 1/8
 capacity covers it with ~25% headroom).
 
-Device/host split (docs/TPU_NOTES.md): the device function returns the
-RAW per-rung results plus the escalation index maps; merging the [H, B]
-hit buffers happens on HOST at readback (``finalize_ladder``) — device-
-side scatters of [H, B] hit matrices / transposed layouts re-trigger the
-backend's degraded mode.  Flat [B] flag scatters (clean) keep multi-rung
-flag propagation on device.
+Device/host split: the device function returns the RAW per-rung results
+plus the escalation index maps; merging the [H, B] hit buffers happens on
+HOST at readback (``finalize_ladder``).  Flat [B] flag scatters keep
+multi-rung flag propagation on device.
 """
 
 from __future__ import annotations
@@ -35,6 +33,7 @@ import jax
 import jax.numpy as jnp
 
 from .beam import RawBeamResult, BeamResult, beam_search, finalize_result
+from .jitcache import join_idx, split_idx
 
 
 class LadderRawResult(NamedTuple):
@@ -54,7 +53,7 @@ def ladder_core(dev, fwd, lens, D, md, opt, ladder, H: int, ESC: int,
                       beam_width=ladder[0], max_hits=H)
     raws = [raw]
     esc_idx, esc_valid = [], []
-    # flat [B] flag state, updated by flat scatters (clean)
+    # flat [B] flag state, updated by flat scatters
     ldrop = raw.n_live_dropped
     hdrop = raw.n_hits_dropped
     for W in ladder[1:]:
@@ -87,16 +86,18 @@ class AdaptiveBeam:
         self.ladder = tuple(ladder)
         self.max_hits = max_hits
         self.esc_frac = esc_frac
+        self._arrays = split_idx(dev_idx)[0]
         self._jit_cache = {}
 
     def _ladder_fn(self, B: int):
+        """The jitted ladder for batch size B: fn(index arrays, fwd, lens,
+        D, md)."""
         if B in self._jit_cache:
             return self._jit_cache[B]
-        from .jitcache import split_idx, join_idx
         opt, H = self.opt, self.max_hits
         ladder = self.ladder
         ESC = max(int(B * self.esc_frac), 1)
-        arrays, meta = split_idx(self.dev)
+        _, meta = split_idx(self.dev)
 
         @jax.jit
         def run_core(arrs, fwd, lens, D, md):
@@ -104,42 +105,25 @@ class AdaptiveBeam:
             res = ladder_core(dev, fwd, lens, D, md, opt, ladder, H, ESC, B)
             return tuple(res.raws), tuple(res.esc_idx), tuple(res.esc_valid)
 
-        run = lambda fwd, lens, D, md: LadderRawResult(
-            *run_core(arrays, fwd, lens, D, md))
-        self._jit_cache[B] = run
-        return run
+        self._jit_cache[B] = run_core
+        return run_core
 
     def __call__(self, fwd, lens, D, md) -> LadderRawResult:
         fwd = jnp.asarray(fwd)
-        args = (fwd, jnp.asarray(lens), jnp.asarray(D), jnp.asarray(md))
-        from ..kernels import select as _sel
-        try:
-            return self._ladder_fn(fwd.shape[0])(*args)
-        except Exception as e:
-            # Mosaic scoped-vmem compile OOM is flaky on some AOT builds
-            # (select.py kernel, 22.7M vs the 16M stack limit at
-            # [352, 512] K=32): rebuild the ladder with the XLA-sort
-            # select and retry once — slower, but the batch completes.
-            # The catch is NARROW (ADVICE r4): only that compile failure
-            # flips the fallback; anything else propagates.
-            msg = f"{type(e).__name__}: {e}"
-            vmem_oom = ("RESOURCE_EXHAUSTED" in msg or "vmem" in msg.lower()
-                        or "Mosaic" in msg or "scoped" in msg.lower())
-            if _sel.FORCE_REFERENCE or not vmem_oom:
-                raise
-            import logging
-            logging.getLogger("hsa_tpu").warning(
-                "select kernel compile failed (%s); falling back to the "
-                "XLA-sort select for the rest of the process", msg[:200])
-            _sel.FORCE_REFERENCE = True
-            self._jit_cache.clear()
-            return self._ladder_fn(fwd.shape[0])(*args)
+        return LadderRawResult(*self._ladder_fn(fwd.shape[0])(
+            self._arrays, fwd, jnp.asarray(lens), jnp.asarray(D),
+            jnp.asarray(md)))
+
+    def lower(self, fwd, lens, D, md):
+        """``jax.stages.Lowered`` of the ladder for these arguments
+        (arrays or ShapeDtypeStructs) — for memory analysis."""
+        return self._ladder_fn(fwd.shape[0]).lower(self._arrays, fwd, lens,
+                                                   D, md)
 
 
 def primary_ranks(res, n) -> jnp.ndarray:
     """Device-side [B] ranks of each read's first hit-buffer slot (rank 0
-    when the slot is invalid) — for benchmark-style primary locates.
-    Flat row reads + flat scatters only (clean constructs)."""
+    when the slot is invalid) — for benchmark-style primary locates."""
     from ..kernels.select import SENT
 
     def one(raw):

@@ -1,5 +1,5 @@
-"""Batched beam-search inexact alignment — the TPU replacement for the
-reference's branch-and-bound stack (lineage: ``bwtgap.c`` ``gap_push`` /
+"""Batched beam-search inexact alignment — the data-parallel replacement
+for the reference's branch-and-bound stack (lineage: ``bwtgap.c`` ``gap_push`` /
 ``gap_pop`` / ``bwt_match_gap``; BASELINE.json north star).
 
 Thousands of reads advance SA-interval *frontiers* in lockstep.  Each read
@@ -9,26 +9,15 @@ deletions — scores them with the Appendix-A budgets, and keeps the best
 ``W`` by score.  Completed states (i == 0) migrate into a per-read hit
 buffer of capacity ``H``.
 
-Implementation discipline (docs/TPU_NOTES.md — every rule below is the
-result of a measured failure mode of the target XLA/TPU backend):
+Structure:
 
 - The whole search is ONE ``lax.scan``; index tables arrive as jit
-  arguments (never closures).
-- Inside the scan, XLA-side code is restricted to: row gathers from
-  argument tables, flat [B*W] elementwise chains, [rows, B] (lane-major)
-  elementwise chains, concatenation, and static slicing.  No sorts,
-  top_k, axis reductions, scatters, 0xFFFFFFFF literals, or
-  small-minor-dim broadcast chains — round-1 rules that kept the scan on
-  the fast lowering (docs/TPU_NOTES.md v2 lists the *persistence* claims
-  as unverified legacy; the per-dispatch slowness was real and the
-  restrictions stay because they cost nothing).
-- All cross-row work (top-W selection, hit-buffer merge, drop counting,
-  best-score tracking) happens in the Pallas kernels of
-  :mod:`hsa_tpu.kernels.select`, which compile through Mosaic and are
-  exempt from the degradation.
-- States are transposed **[W, B]** (slots on rows, reads on lanes); the
-  candidate matrices are [9W, B].  Per-read constants are pre-broadcast
-  to flat [B*W] outside the scan.
+  arguments (never closures, which would embed them as constants).
+- Cross-row work (top-W selection, hit-buffer merge, drop counting)
+  goes through :func:`hsa_tpu.kernels.select.select_topk`.
+- States are transposed **[W, B]** (slots on rows, reads on columns);
+  the candidate matrices are [9W, B].  Per-read constants are
+  pre-broadcast to flat [B*W] outside the scan.
 
 Parity contract (SURVEY.md §7.3.1): the oracle's accepted hit set is
 order-independent, so this engine reproduces it exactly *provided no valid
@@ -81,11 +70,10 @@ def _unpack(meta):
 
 
 class RawBeamResult(NamedTuple):
-    """Device-side search output, kept in kernel layout ([H, B], reads on
-    lanes).  Finalization (score-window filter, meta unpack, transposition
-    to read-major) happens on HOST at readback (``finalize_result``):
-    device-side transposes to small-minor [B, H] layouts and post-scan
-    unpack chains re-trigger the degraded mode (docs/TPU_NOTES.md)."""
+    """Device-side search output, kept in the scan's layout ([H, B], reads
+    on columns).  Finalization (score-window filter, meta unpack,
+    transposition to read-major) happens on HOST at readback
+    (``finalize_result``)."""
     hkey: jnp.ndarray        # uint32[H, B]  score << KEY_SH | row
     hit_k: jnp.ndarray       # uint32[H, B]
     hit_l: jnp.ndarray       # uint32[H, B]
@@ -170,7 +158,7 @@ def beam_search(idx, reads_fwd, lens, D, max_diff, opt, *,
     combo = (reads_fwd | (Dc[:, :Lmax] << 3) | (Dc[:, 1:Lmax + 1] << 8)).reshape(-1)
     combo = lax.optimization_barrier(combo)
 
-    def bc(x):  # per-read value -> flat [W*B], w-major (lane = read)
+    def bc(x):  # per-read value -> flat [W*B], w-major (column = read)
         return jnp.broadcast_to(x[None, :], (W, B)).reshape(-1)
 
     # loop-invariant flat broadcasts / constants (computed OUTSIDE the scan)
@@ -281,28 +269,24 @@ def beam_search(idx, reads_fwd, lens, D, max_diff, opt, *,
         hit_key = matT([jnp.where(g[0] & (ci == 0), sk, SENT)
                         for g, ci, sk in zip(hitg, child_i[:HG], skey[:HG])])
 
-        # --- hit merge (kernel 1): old buffer + completion candidates ---
+        # --- hit merge: old buffer + completion candidates ---
         mkey = jnp.concatenate([hkey, hit_key | colM[H:]], axis=0)
         mk = jnp.concatenate([hk, kc[:HC]], axis=0)
         ml = jnp.concatenate([hl, lc[:HC]], axis=0)
         mm_ = jnp.concatenate([hm, mc[:HC]], axis=0)
-        # Drop tracking: running MAX of per-step drop counts, updated with
-        # the same where-select pattern as `best` — accumulating adds or
-        # dedicated counter carries triggered the round-1 slow mode
-        # (docs/TPU_NOTES.md v2 legacy rule).  >0 iff any step
-        # overflowed, which is the parity-alarm semantics every consumer
-        # relies on.
+        # Drop tracking: running MAX of per-step drop counts.  >0 iff any
+        # step overflowed, which is the parity-alarm semantics every
+        # consumer relies on.
         okeyd, (hk2, hl2, hm2), _ = select_topk(mkey, (mk, ml, mm_), H)
         okey = okeyd[:H]
         hdrop_i = okeyd[H]
         hdrop = jnp.where(hdrop_i > hdrop, hdrop_i, hdrop)
         cand_best = okey[0] >> KEY_SH                   # row 0 = best hit
-        # NOTE: jnp.minimum on uint32 is a degraded-lowering risk; use where
         best2 = jnp.where(cand_best < best, cand_best, best)
         # re-key buffer rows so columns stay unique next step
         hkey2 = ((okey >> KEY_SH) << KEY_SH) | rowH
 
-        # --- frontier selection (kernel 2), windowed at best + s_mm ---
+        # --- frontier selection, windowed at best + s_mm ---
         win = best2 + U32(s_mm)
         lkeyd, (k2, l2, m2), _ = select_topk(
             live_key, (kc, lc, mc), W, window=win)
@@ -341,8 +325,7 @@ def _jitted(idx, kind, body):
     scan-based passes costs more than the device work itself).  Keys include
     every value baked into the closure (index identity, kind, opt).  Index
     tables are passed as jit ARGUMENTS, not closures — closure arrays become
-    HLO literals, break the remote-compile path on multi-GB indexes AND put
-    XLA's gather onto a ~100x slower lowering (docs/TPU_NOTES.md)."""
+    HLO literals, which bloats the program on multi-GB indexes."""
     from .jitcache import jit_over_idx
     key = (id(idx), kind)
     f = _jit_cache.get(key)
@@ -375,8 +358,8 @@ def search_device(idx, fwd, lens, opt, *, beam_width=None, max_hits=32,
     """Device-only search: packed batch -> BeamResult (device arrays).
 
     Performs NO device->host transfer — the caller decides when to read
-    results back (per-batch readbacks are cheap in sync mode; the split
-    simply lets callers overlap several searches per readback).
+    results back (the split lets callers overlap several searches per
+    readback).
     ``fwd``/``lens`` are numpy or device arrays.
     """
     import numpy as np

@@ -78,10 +78,10 @@ def kmer_table(idx, K: int, chunk: int = 1 << 22):
     sentinel (1, 0).  Seeding a segment search with ``tk[p], tl[p]``
     replaces the first K scan steps with one table gather per end.
 
-    HOST-driven BFS (do NOT wrap in jit): one traced level inside a
-    single executable keeps every level's intermediates alive and OOMs
-    HBM at K=12 (measured: 17 GB).  Each level is its own dispatch and
-    the big final levels run in fixed-size chunks.
+    HOST-driven BFS (do NOT wrap in jit): tracing all levels into one
+    executable keeps every level's intermediates alive at once (4^K
+    entries each at the deepest levels).  Each level is its own dispatch
+    and the big final levels run in fixed-size chunks.
     """
     import jax
     from .jitcache import split_idx, join_idx
@@ -94,7 +94,7 @@ def kmer_table(idx, K: int, chunk: int = 1 << 22):
         ks = jnp.repeat(k, 4)
         ls = jnp.repeat(l, 4)
         # child base via iota, NOT tile(arange(4)): a tiled constant would
-        # embed a 4^K-element literal in the HLO (slow remote compiles)
+        # embed a 4^K-element literal in the HLO
         a = jnp.arange(ks.shape[0], dtype=U32) & U32(3)
         k2, l2 = fm.extend(ix, a, ks, ls)
         empty = k2 > l2
@@ -127,9 +127,7 @@ def locate_all(idx, k, l, matched, cap: int):
     valid = offs < take[:, None].astype(U32)
     ranks_flat = jnp.where(valid, ranks, U32(0)).reshape(-1)
     pos = fm.locate(idx, ranks_flat).reshape(ranks.shape)
-    # NO_POS sentinel = 0xFFFFFFFE: round 1 observed all-ones literals in
-    # device where-branches triggering the slow mode (docs/TPU_NOTES.md
-    # v2 legacy rule, unverified); 0xFFFFFFFE is equally unreachable as
-    # a genome position (uint32 text bound is 2^32-2) and costs nothing.
+    # NO_POS sentinel = 0xFFFFFFFE: unreachable as a genome position
+    # (the uint32 text bound is 2^32-2).
     pos = jnp.where(valid, pos, U32(0xFFFFFFFE))
     return pos, cnt_full

@@ -4,17 +4,15 @@ These are the device analogs of the reference's ``bwt.c`` rank/locate
 primitives (``bwt_occ4``/``bwt_2occ4``/``bwt_sa``), restated over
 ``hsa_tpu.index.layout`` v4 rows and batched over query vectors.
 
-Performance discipline (docs/TPU_NOTES.md; honest round-2 measurements):
+Structure:
 
-- row gathers run at ~75 Mrows/s ONLY inside a ``lax.scan``/``fori_loop``
-  executable with the table as a jit ARGUMENT; standalone dispatched
-  gathers are ~10x slower.  All hot loops live in scans.
-- the gather cost is per ROW; v4 therefore fuses occ checkpoints, BWT
-  symbols, locate mark bits and the mark-rank checkpoint into ONE 32-byte
-  row per 32 ranks, so ``lf`` — and every locate-walk step — costs exactly
-  one gather.
+- hot loops live in ``lax.scan``/``fori_loop`` executables with the table
+  as a jit ARGUMENT.
+- v4 fuses occ checkpoints, BWT symbols, locate mark bits and the
+  mark-rank checkpoint into ONE 32-byte row per 32 ranks, so ``lf`` — and
+  every locate-walk step — costs exactly one row gather.
 - decode compute is elementwise on FLAT [B] vectors; the 32-rank block
-  needs only two 16-symbol mask words per count (half the v3 decode).
+  needs only two 16-symbol mask words per count.
 
 Rank convention (matches :mod:`hsa_tpu.fmcore`): the primitive is
 ``occ_lt(a, p)`` = number of ``a`` among bwt_full rows ``[0, p)`` excluding

@@ -1,6 +1,7 @@
 """Adaptive beam ladder: same hit sets as a flat top-width run."""
 
 import numpy as np
+import pytest
 
 import jax.numpy as jnp
 
@@ -79,3 +80,27 @@ def test_ladder_single_rung_equals_beam():
                                  beam_width=64, max_hits=8), opt.s_mm)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+def test_ladder_propagates_compile_error(monkeypatch):
+    """A selection that fails to compile fails the call: no retry, no
+    other selection path."""
+    from hsa_tpu.search import beam
+
+    calls = []
+
+    def fails(*args, **kwargs):
+        calls.append(1)
+        raise RuntimeError("RESOURCE_EXHAUSTED: Mosaic scoped vmem limit")
+
+    monkeypatch.setattr(beam, "select_topk", fails)
+    t = np.random.RandomState(3).randint(0, 4, 4_000).astype(np.int8)
+    dev = build_device_index(t).as_jax()
+    opt = AlnOpt(max_diff=1, max_gapo=0)
+    B, L = 8, 30
+    fwd = np.stack([t[i * 50:i * 50 + L] for i in range(B)]).astype(np.uint8)
+    lens = np.full(B, L, np.int32)
+    with pytest.raises(RuntimeError, match="RESOURCE_EXHAUSTED"):
+        AdaptiveBeam(dev, opt, ladder=(8, 64), max_hits=8)(
+            fwd, lens, np.zeros((B, L), np.int32), np.full(B, 1, np.int32))
+    assert len(calls) == 1

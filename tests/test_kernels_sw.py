@@ -1,11 +1,11 @@
-"""Glocal DP kernels vs the host fit_in_window oracle (costs + end columns)."""
+"""Glocal DP screen vs the host fit_in_window oracle (costs + end columns)."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from hsa_tpu.kernels.sw import glocal_screen, glocal_screen_pallas
+from hsa_tpu.kernels.sw import glocal_screen
 from hsa_tpu.resolve.sampe import fit_in_window
 
 
@@ -62,18 +62,6 @@ def test_jnp_screen_matches_host_dp():
         if exp < (1 << 28):
             c2 = oracle_cost(reads[j][:lens[j]], wins[j][:end[j]])
             assert c2 == exp
-
-
-def test_pallas_interpret_matches_jnp():
-    rs = np.random.RandomState(1)
-    reads, lens, wins, wlens = cases(rs, 12, L=33, G=100)
-    a = glocal_screen(jnp.asarray(reads), jnp.asarray(lens),
-                      jnp.asarray(wins), jnp.asarray(wlens), 3, 11, 4)
-    b = glocal_screen_pallas(jnp.asarray(reads), jnp.asarray(lens),
-                             jnp.asarray(wins), jnp.asarray(wlens), 3, 11, 4,
-                             tile=8, interpret=True)
-    np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
-    np.testing.assert_array_equal(np.asarray(a[1]), np.asarray(b[1]))
 
 
 def test_screen_rejects_junk():

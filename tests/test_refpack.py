@@ -16,6 +16,31 @@ def test_native_library_builds():
     assert refpack.available()
 
 
+def test_library_rebuilds_when_a_source_changes(tmp_path):
+    """The library is keyed on its sources: an edited source gets a new
+    path and a fresh build; unchanged sources reuse the built file."""
+    import os
+    import shutil
+    src = tmp_path / "src"
+    src.mkdir()
+    for name in ("refpack.cpp", "sais.hpp", "Makefile"):
+        shutil.copy(os.path.join(os.path.dirname(refpack.__file__), name),
+                    src / name)
+    out = str(tmp_path / "build")
+    first = refpack.build_library(str(src), out)
+    assert os.path.exists(first)
+    assert refpack.so_path(str(src), out) == first
+    mtime = os.path.getmtime(first)
+    assert refpack.build_library(str(src), out) == first
+    assert os.path.getmtime(first) == mtime          # not rebuilt
+    with open(src / "refpack.cpp", "a") as fh:
+        fh.write("\n// edited\n")
+    second = refpack.so_path(str(src), out)
+    assert second != first and not os.path.exists(second)
+    assert refpack.build_library(str(src), out) == second
+    assert os.path.exists(second)
+
+
 @pytest.mark.parametrize("n,seed", [(1, 0), (2, 1), (17, 2), (1000, 3), (100_000, 4)])
 def test_sais_matches_numpy(n, seed):
     t = rand_text(n, seed)
